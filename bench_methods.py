@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Per-method benchmark: SPPM / BDPT / light tracing on bunny (round-4
-verdict #8: BASELINE lists five benchmark configs but only the PT path
-was measured, so perf work risked overfitting to PT).
+"""Per-method benchmark: SPPM / BDPT / light tracing on bunny, on the GPU
+(fails when JAX finds no GPU).
 
 Prints ONE JSON line per method:
-  {"metric": "bunny_<method>_throughput", "value": N, "unit": ...}
+  {"metric": "bunny_<method>_throughput", "value": N, "unit": ..., device}
 
-Ray accounting per method (hardware lane-rays, matching bench.py's
+Ray accounting per method (dispatched lane-rays, matching bench.py's
 convention):
 - sppm: per iteration, camera pass traces 1 + (depth-1) closest-hit +
   depth shadow rays per pixel lane; photon pass traces depth
@@ -17,8 +16,7 @@ convention):
 - light_tracing (t1): light walk depth closest-hit + depth camera
   connection shadow rays per path lane.
 These counts are documented approximations of dispatched lane-rays —
-the point is tracking each method's trend across rounds, not
-cross-method comparison.
+the point is tracking each method's trend, not cross-method comparison.
 """
 
 import json
@@ -26,10 +24,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      "/root/.cache/jax_comp_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.0")
 _REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _REPO)
 
@@ -37,14 +31,17 @@ sys.path.insert(0, _REPO)
 def main():
     import jax
 
+    from goblin_tpu import runtime
     from goblin_tpu.assets import ensure_bunny_obj
     from goblin_tpu.scene.loader import load_scene
+
+    device = runtime.require_gpu()
+    runtime.enable_compile_cache()
 
     ensure_bunny_obj(os.path.join(_REPO, "examples", "models", "bunny.obj"))
     depth = 5
     spp = 2
     n_pix = 512 * 384
-    results = []
     for method in ("sppm", "bdpt", "light_tracing"):
         scene, meta = load_scene(
             os.path.join(_REPO, "examples", "bunny.json"),
@@ -75,15 +72,13 @@ def main():
         line = {
             "metric": f"bunny_{method}_throughput",
             "value": round(mrays, 3),
-            "unit": "Mrays/s/chip",
+            "unit": "Mrays/s",
             "seconds": round(dt, 3),
             "spp": spp,
             "depth": depth,
+            **device,
         }
-        results.append(line)
         print(json.dumps(line), flush=True)
-    with open(os.path.join(_REPO, "bench_methods.json"), "w") as f:
-        json.dump(results, f)
 
 
 if __name__ == "__main__":

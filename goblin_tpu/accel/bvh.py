@@ -1,6 +1,6 @@
 """Host-side BVH build over the world-space triangle soup.
 
-TPU-first re-design of the reference's two-level CPU BVH
+Re-design of the reference's two-level CPU BVH
 (src/GoblinBVH.cpp:34-280): instances are flattened to world space at bake
 time and ONE global BVH is built, laid out in DFS pre-order with *skip
 links* so device traversal is stackless and uniform across the ray
@@ -8,9 +8,10 @@ wavefront — every lane advances with
 
     node = hit_and_inner ? node + 1 : miss_link[node]
 
-which is branch-free, divergence-tolerant, lockstep control flow: exactly
-what the TPU's vector units want (vs. the reference's per-ray 64-deep
-traversal stack, src/GoblinBVH.cpp:234-280, which is hostile to SIMD).
+which needs no per-ray stack (vs. the reference's per-ray 64-deep
+traversal stack, src/GoblinBVH.cpp:234-280): the same walk runs as a
+lockstep wavefront loop (accel/traverse) and as one ray per GPU lane
+(ops/trace_kernel).
 
 Build strategy: top-down binned-SAH split on the longest centroid axis
 with median fallback, leaves up to `max_leaf` triangles reordered to be
@@ -185,32 +186,3 @@ def _build_bvh_python(
     ).astype(np.float32)
     meta = np.asarray(meta_out, dtype=np.int32)
     return BVHArrays(bounds=bounds, meta=meta, order=order)
-
-
-def align_leaves(bvh: BVHArrays, align: int = 8) -> BVHArrays:
-    """Post-pass: pad the triangle ordering so every leaf's first
-    triangle sits on a multiple of `align` (sentinel slots are -1 and
-    bake turns them into degenerate never-hit triangles). The Pallas
-    packet kernel then extracts a whole align-triangle group with ONE
-    cross-lane reduction instead of one per triangle — the traversal is
-    latency-bound on exactly those reductions."""
-    meta = bvh.meta.copy()
-    order = bvh.order
-    leaf_ids = np.nonzero(meta[:, 1] > 0)[0]
-    # leaves are emitted with increasing first in DFS order
-    leaf_ids = leaf_ids[np.argsort(meta[leaf_ids, 0], kind="stable")]
-    chunks = []
-    pos = 0
-    for n in leaf_ids:
-        first, count = int(meta[n, 0]), int(meta[n, 1])
-        meta[n, 0] = pos
-        chunks.append(order[first:first + count])
-        pad = (-count) % align
-        if pad:
-            chunks.append(np.full(pad, -1, np.int32))
-        pos += count + pad
-    new_order = (
-        np.concatenate(chunks).astype(np.int32)
-        if chunks else np.zeros(0, np.int32)
-    )
-    return BVHArrays(bounds=bvh.bounds, meta=meta, order=new_order)

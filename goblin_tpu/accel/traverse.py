@@ -10,8 +10,10 @@ leaf, up to `max_leaf` unrolled Moller-Trumbore tests against contiguous
 reordered triangles. Finished lanes idle on node N-1 with masked updates.
 
 This replaces the reference's per-thread stack traversal
-(src/GoblinBVH.cpp:156-280) with uniform control flow; a Pallas variant
-with VMEM-resident nodes is the planned fast path (ops/).
+(src/GoblinBVH.cpp:156-280) with uniform control flow. It is the plain
+reference for the GPU kernel ops/trace_kernel, which walks the same tree
+in the same order one ray per lane, and the trace off the GPU.
+Rays with maxt <= mint start finished.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def trace(
     inv_d = 1.0 / jnp.where(d == 0.0, 1e-30, d)
 
     init = (
-        jnp.zeros((R,), jnp.int32),  # node
+        jnp.where(maxt > mint, 0, N).astype(jnp.int32),  # node
         jnp.where(maxt < BIG_T, maxt, BIG_T),  # best t (doubles as cur maxt)
         jnp.full((R,), -1, jnp.int32),  # best tri
         jnp.zeros((R,), jnp.float32),  # b1

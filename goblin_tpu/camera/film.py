@@ -157,12 +157,10 @@ def splat_taps(spec: FilmSpec, x, y, L, normalized=False):
     """Tap-expansion half of the filter splat: sample (x, y, L) ->
     (flat_idx, w, wL) update streams for the film scatter.
 
-    SPLIT FROM THE SCATTER ON PURPOSE: a scatter-add whose update
-    operands are values internal to the same jit runs ~5000x slower on
-    TPU than one reading argument buffers (measured 13 s vs 0.2 ms for
-    identical 16M-point updates; optimization_barrier does NOT fix it —
-    the internal-value layout hits an XLA scatter slow path). Drivers
-    must jit splat_taps and splat_accum as SEPARATE dispatches.
+    Kept apart from the scatter: the splatting drivers jit splat_taps
+    and splat_accum as separate dispatches, a shape that served an XLA
+    scatter slow path of the accelerator this was first written for;
+    whether it still pays on a GPU is open.
     """
     f = spec.filter
     dx_img = x - 0.5
@@ -204,9 +202,8 @@ def splat_taps(spec: FilmSpec, x, y, L, normalized=False):
 
 
 def splat_accum(color, weight, flat_idx, w_flat, wL):
-    """Scatter half of the filter splat (see splat_taps). Slice the
-    scatter-add: XLA's TPU scatter is fast up to ~4M update points but
-    falls off a cliff beyond (measured 0.08 ms at 4M vs 194 ms at 8M)."""
+    """Scatter half of the filter splat (see splat_taps), sliced into
+    scatter-adds of at most 2M update points each."""
     SLICE = 1 << 21
     n = flat_idx.shape[0]
     cflat = color.reshape(-1, 3)
@@ -234,9 +231,9 @@ def splat_dense(spec: FilmSpec, color, weight, jx, jy, L, ys0=0, xs0=0):
     layout, filter splatting is a small non-stationary convolution: pixel
     (iy, ix) sums w(0.5 - o - jitter) * L over the static window of
     neighboring samples — dense shifted multiply-adds, no scatter. This
-    replaces the (H*W*taps)-point scatter-add (which dominated the whole
-    render step on TPU) for the camera-sampled integrators; splatting
-    integrators (LT/BDPT) keep the general scatter `splat`.
+    replaces the (H*W*taps)-point scatter-add for the camera-sampled
+    integrators; splatting integrators (LT/BDPT) keep the general
+    scatter `splat`.
 
     jx, jy: (yc, xc) per-pixel jitters in [0,1); L: (yc, xc, 3) radiance.
     Returns updated full-film (color, weight); non-finite samples are

@@ -187,8 +187,8 @@ def _cdf_find(cdf, u):
     """Last index i with cdf[..., i] <= u, clipped to valid cells.
 
     Compare-all search: broadcasts over batched per-row tables (which
-    jnp.searchsorted cannot) and maps to dense VPU compares on TPU; CDF
-    tables here are small (lights, env-map rows).
+    jnp.searchsorted cannot) with dense compares; CDF tables here are
+    small (lights, env-map rows).
     """
     n = cdf.shape[-1] - 1
     idx = jnp.sum((cdf[..., :-1] <= u[..., None]).astype(jnp.int32), axis=-1) - 1

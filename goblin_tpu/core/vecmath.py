@@ -197,14 +197,15 @@ def euler_to_quat(xyz_degrees, order="xyz"):
 # Transforms (position, quaternion, scale) -> 4x4, applied M @ [v, 1]
 #
 # Small-matrix application is written as stacked dot products, NOT
-# einsum/matmul: XLA would route a (R,3)x(3,3) contraction to the MXU in
-# bf16 on TPU (wrong precision) and waste the 128x128 systolic array on a
-# 3-wide op. Elementwise mul+add stays f32 on the VPU and fuses.
+# einsum/matmul: XLA would hand a (R,3)x(3,3) contraction to a matrix
+# library call, which on a GPU may run in TF32 (wrong precision) and
+# costs a launch for a 3-wide op. Elementwise mul+add stays f32 and
+# fuses with its neighbours.
 # ---------------------------------------------------------------------------
 
 
 def mat3_apply(m, v):
-    """(..., 3, 3) @ (..., 3) -> (..., 3) via VPU-friendly dots."""
+    """(..., 3, 3) @ (..., 3) -> (..., 3) via elementwise dots."""
     return jnp.stack(
         [
             jnp.sum(m[..., 0, :] * v, axis=-1),

@@ -29,6 +29,9 @@ DIM_LENS_V = 3
 DIM_BASE = 4  # integrator dims start here
 # bounce id used for camera-sample dims
 BOUNCE_CAMERA = 0x7FFF
+# edge in pixels of the screen tiles that order a pass's camera rays, so
+# that neighbouring rays of a wavefront share BVH nodes
+SCREEN_TILE = 32
 
 
 def spp_grid(spp: int) -> int:
@@ -37,6 +40,21 @@ def spp_grid(spp: int) -> int:
     return int(np.ceil(np.sqrt(max(1, spp))))
 
 
+
+
+def tile_permutation(yc: int, xc: int):
+    """(perm, inv_perm) over a yc x xc crop: perm lists row-major pixel
+    indices tile by tile (SCREEN_TILE squares), inv_perm undoes it."""
+    t = SCREEN_TILE
+    idx = np.arange(yc * xc, dtype=np.int32).reshape(yc, xc)
+    perm = np.concatenate([
+        idx[ty:ty + t, tx:tx + t].reshape(-1)
+        for ty in range(0, yc, t)
+        for tx in range(0, xc, t)
+    ])
+    inv_perm = np.empty(yc * xc, np.int32)
+    inv_perm[perm] = np.arange(yc * xc, dtype=np.int32)
+    return perm, inv_perm
 
 
 def stratified_1d(seed, pixel_ids, s_idx, n_spp, bounce, dim):
@@ -102,20 +120,9 @@ def make_render_pass(scene, meta, li_fn, spp, seed, chunk_size=1 << 16):
          + np.arange(xs_, xs_ + xc)[None, :]).reshape(-1).astype(np.int32)
     )
     n_pix = row_major.size
-    # Tile-coherent traversal order: the packet trace kernel walks the
-    # union of its rays' BVH node sets, so each trace_rows*128-ray packet
-    # should cover a compact screen tile, not a row-major strip (measured
-    # ~2x on bunny primaries). perm maps tile order -> row-major index.
-    tile = max(8, int(np.sqrt(meta.trace_rows * 128)))
-    idx = np.arange(n_pix, dtype=np.int32).reshape(yc, xc)
-    perm = np.concatenate([
-        idx[ty:ty + tile, tx:tx + tile].reshape(-1)
-        for ty in range(0, yc, tile)
-        for tx in range(0, xc, tile)
-    ])
+    # tile-coherent ray order; perm maps tile order -> row-major index
+    perm, inv_perm = tile_permutation(yc, xc)
     pixel_ids_all = row_major[perm]
-    inv_perm = np.empty(n_pix, np.int32)
-    inv_perm[perm] = np.arange(n_pix, dtype=np.int32)
     inv_perm_dev = jnp.asarray(inv_perm)
     # don't pad a small frame up to a huge chunk
     chunk_size = min(chunk_size, ((n_pix + 1023) // 1024) * 1024)

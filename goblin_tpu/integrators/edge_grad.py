@@ -25,7 +25,7 @@ tangent, and n_l the light plane normal; edges are oriented so the
 projected silhouette polygon is counter-clockwise about n_l, making
 (T x n_l) the outward normal times |T|.
 
-Two levels (round 5 promoted this from toy to feature — VERDICT r4 #6):
+Two levels:
 
 - `direct_light_boundary_grad`: single-triangle occluder, silhouette =
   all 3 edges, projection assumed inside the light polygon (the round-3

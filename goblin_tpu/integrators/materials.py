@@ -14,9 +14,8 @@ import jax.numpy as jnp
 
 from ..shading.bsdf import MAT_MASK
 
-# XLA lowers per-lane gathers on TPU to slow serialized loads; below
-# this stack size a masked select-sum (dense vector ops over every
-# texture) is much faster than take_along_axis
+# below this stack size a masked select-sum (dense elementwise ops over
+# every texture) replaces the per-lane take_along_axis gather
 _SELECT_SUM_MAX = 16
 
 
@@ -37,8 +36,7 @@ def _pick(stack, ids):
 def gather_material(scene, meta, frag, u_mask=None):
     """Per-lane material parameters. The per-material scalar fields come
     from ONE fused row gather of scene["mat_rows"] (ints bitcast through
-    f32) instead of ~10 separate jnp.take calls — per-lane gathers
-    dominate the shading stage's cost on TPU."""
+    f32) instead of ~10 separate jnp.take calls."""
     mid = frag["mat"]
 
     def bits(col):

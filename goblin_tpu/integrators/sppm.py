@@ -15,7 +15,7 @@ sort-based data-parallel grid:
        and segmented (Teschner hash, cell = 2 * max radius, :240-276)
     3. photon pass, VP-major gather form: every visible point drains
        exactly its own cell's deposit list, accumulating Phi/Mi in its
-       own lane — no scatter (round 5; same join as the reference's
+       own lane — no scatter (same join as the reference's
        per-cell linked-list walk, :391-462)
     4. radius/flux update, alpha = 0.7: N' = N + a*M,
        R' = R*sqrt(N'/(N+M)), Tau' = (Tau + tp*Phi)(R'/R)^2 (:548-567)
@@ -245,14 +245,12 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
 
 
 def make_photon_passes(scene, meta, seed, max_len, n_pix):
-    """VP-major ("gather-form") photon deposit, replacing the round-4
-    photon-major scatter form.
+    """VP-major ("gather-form") photon deposit, replacing a photon-major
+    scatter form.
 
-    Round-5 finding: the photon-major drain did, per while-loop
-    iteration, TWO jnp scatter-adds (measured 2.6 ms each for 64k lanes
-    on TPU — XLA's scatter slow path) plus a per-iteration
-    gather_material + texture eval, totalling ~7 s per 32k-photon chunk.
-    Inverting the join fixes all three at once: photon DEPOSITS are
+    The photon-major drain did, per while-loop iteration, two scatter-adds
+    plus a per-iteration gather_material + texture eval. Inverting the
+    join removes all three: photon DEPOSITS are
     hashed into the grid (each into the <= 8 cells its +-max_r cube
     overlaps, clamp-deduped), and every visible point drains exactly its
     own cell, accumulating Phi/Mi in its OWN lane — no scatter at all —

@@ -55,6 +55,7 @@ from .common import (
     DIM_LENS_V,
     pixel_samples,
     spp_grid,
+    tile_permutation,
     stratified_1d,
     stratified_2d,
 )
@@ -103,18 +104,9 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
          + np.arange(xs_, xs_ + xc)[None, :]).reshape(-1).astype(np.int32)
     )
     n_pix = row_major.size
-    # tile-coherent sample order (see common.make_render_pass): packets of
-    # consecutive fresh lanes cover compact screen tiles
-    tile = max(8, int(np.sqrt(meta.trace_rows * 128)))
-    idx = np.arange(n_pix, dtype=np.int32).reshape(yc, xc)
-    perm = np.concatenate([
-        idx[ty:ty + tile, tx:tx + tile].reshape(-1)
-        for ty in range(0, yc, tile)
-        for tx in range(0, xc, tile)
-    ])
+    # tile-coherent sample order (see common.make_render_pass)
+    perm, inv_perm = tile_permutation(yc, xc)
     pix_of_k = jnp.asarray(row_major[perm])
-    inv_perm = np.empty(n_pix, np.int32)
-    inv_perm[perm] = np.arange(n_pix, dtype=np.int32)
     inv_perm_dev = jnp.asarray(inv_perm)
 
     R = int(min(pool, ((n_pix * n_spp + 1023) // 1024) * 1024))

@@ -7,9 +7,8 @@ deterministic recursion into BOTH specularReflect and specularRefract
 (GoblinWhitted.cpp:33-38, GoblinRenderer.cpp:598-656) — is unrolled
 statically: each tree node is a masked full-wavefront segment, children
 are Python-recursion emissions of the same node function. Estimator
-parity holds per-spp (round-4 verdict item: the earlier stochastic
-one-branch Fresnel pick converged to the same image but was a different
-estimator).
+parity holds per-spp (a stochastic one-branch Fresnel pick converges
+to the same image but is a different estimator).
 
 Static pruning keeps the unroll linear when the scene cannot branch:
 - reflect children exist only if a specular-reflective material

@@ -1,6 +1,6 @@
 """Light table: batched sampling/eval for all light types.
 
-TPU re-design of the reference Light hierarchy (src/GoblinLight.{h,cpp}):
+Wavefront re-design of the reference Light hierarchy (src/GoblinLight.{h,cpp}):
 per-lane type ids select between masked per-type computations. Semantics
 preserved:
 
@@ -147,10 +147,9 @@ def bake_lights(build: LightsBuild, em_tri_light, em_tri_area,
 
 
 def _sel(lights, key, lid):
-    """Per-lane row select from the light table. XLA lowers per-lane
-    gathers to slow serialized loads on TPU; light counts are tiny, so a
-    masked select-sum (dense vector ops over every light) is far
-    cheaper. Falls back to gather for large tables."""
+    """Per-lane row select from the light table. Light counts are tiny,
+    so a masked select-sum (dense elementwise ops over every light)
+    replaces the per-lane gather; large tables fall back to gather."""
     tab = lights[key]
     L = tab.shape[0]
     if L <= 16:

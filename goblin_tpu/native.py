@@ -3,7 +3,8 @@
 Native components (C++): binned-SAH BVH builder with skip-link layout,
 Morton triangle ordering, OBJ parser. Python fallbacks exist for each
 (accel/bvh.py, geometry/mesh.py); the native path is preferred when the
-library is present (build with `make -C native`).
+library builds. It is compiled from native/*.cpp at first use (or by
+`make -C native`) and never committed.
 """
 
 from __future__ import annotations
@@ -17,6 +18,29 @@ _LIB = None
 _TRIED = False
 
 
+def _build(path: str) -> bool:
+    """Compile the library from native/*.cpp into `path`. The compiler
+    writes a name of this process's own and the result is renamed into
+    place, so concurrent first uses (test workers) never load a
+    half-written file."""
+    import subprocess
+
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            ["make", "-C", os.path.dirname(path),
+             f"LIB={os.path.basename(tmp)}"],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, path)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _lib():
     global _LIB, _TRIED
     if _TRIED:
@@ -26,17 +50,8 @@ def _lib():
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "native", "libgoblin_native.so",
     )
-    if not os.path.exists(path):
-        # try building it
-        try:
-            import subprocess
-
-            subprocess.run(
-                ["make", "-C", os.path.dirname(path)],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            return None
+    if not os.path.exists(path) and not _build(path):
+        return None
     try:
         lib = ctypes.CDLL(path)
     except OSError:

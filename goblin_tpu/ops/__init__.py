@@ -1,1 +1,1 @@
-from . import pallas_trace  # noqa: F401
+"""Hand-written device kernels (Pallas)."""

@@ -3,10 +3,12 @@
 The reference scales by std::thread over image tiles in one process
 (src/GoblinThreadPool.cpp, SURVEY.md §2.9). Here the scaling axis is the
 ray wavefront: pixel batches are sharded over a 1-D ``rays`` mesh axis
-(data parallel), the scene SoA is replicated, film splats land in
-replicated film arrays (XLA inserts the cross-device reduction), and
-parameter gradients are combined by the same GSPMD partitioner — over ICI
-on a real slice, over the fake CPU mesh in tests.
+(data parallel) and the scene SoA is replicated. The radiance function
+runs under shard_map, so each device traces its own rays (the GPU trace
+kernel is a custom call the GSPMD partitioner cannot split); film splats
+land in replicated film arrays and parameter gradients are summed across
+the mesh (XLA inserts the collectives: NCCL over NVLink on GPUs, the fake
+CPU mesh in tests).
 
 On multi-host slices the same mesh spans hosts: processes bootstrap via
 parallel.multihost.init_from_env() (jax.distributed.initialize), after
@@ -38,6 +40,25 @@ def make_mesh(n_devices: int | None = None, axis: str = "rays") -> Mesh:
     return Mesh(np.asarray(devs), (axis,))
 
 
+def shard_li(li_fn, mesh: Mesh, axis: str = "rays"):
+    """li_fn mapped over the mesh's ray axis: every leaf of the ray dict
+    and the pixel ids are split along their first dimension, the scene
+    and the sample index are replicated, and each device runs the whole
+    radiance function on its own rays."""
+
+    def li(scene, meta, ray, pixel_ids, s_idx, seed):
+        return jax.shard_map(
+            lambda sc, r, pix, s: li_fn(sc, meta, r, pix, s, seed),
+            mesh=mesh,
+            in_specs=(P(), P(axis), P(axis), P()),
+            out_specs=P(axis),
+            # the integrators start loop carries from unsharded constants
+            check_vma=False,
+        )(scene, ray, pixel_ids, s_idx)
+
+    return li
+
+
 def replicate_scene(scene, mesh: Mesh):
     """Place every scene array replicated on the mesh."""
     from .multihost import global_put
@@ -55,6 +76,7 @@ def make_sharded_render_step(scene, meta, li_fn, mesh: Mesh,
     spec = cam.film
     seed = int(meta.settings.get("seed", 0))
     n_grid = common.spp_grid(int(meta.settings.get("sample_per_pixel", 1)))
+    li_fn = shard_li(li_fn, mesh, axis)
     scene_sh = replicate_scene(scene, mesh)
     ray_sh = NamedSharding(mesh, P(axis))
     rep = NamedSharding(mesh, P())
@@ -143,6 +165,7 @@ def make_sharded_train_step(scene, meta, li_fn, mesh: Mesh,
     cam = meta.camera
     spec = cam.film
     seed = int(meta.settings.get("seed", 0))
+    li_fn = shard_li(li_fn, mesh, axis)
     scene_sh = replicate_scene(scene, mesh)
     ray_sh = NamedSharding(mesh, P(axis))
     rep = NamedSharding(mesh, P())
@@ -181,17 +204,17 @@ def make_sharded_render_pass(scene, meta, li_fn, mesh: Mesh, spp, seed,
     """Sharded mirror of common.make_render_pass: radiance chunks are
     constrained to the mesh's ray axis, the dense full-frame filter
     splat stays replicated (the per-pass image is small; XLA inserts the
-    all-gather over ICI). Returns (render_pass, n_spp) — same contract,
-    so bench/driver code can time the exact sharded production pass.
+    all-gather). Returns (render_pass, n_spp) — same contract, so
+    bench/driver code can time the exact sharded production pass.
 
     This replaces the per-chunk scatter splat of make_sharded_render_step
-    for camera-sampled integrators: the scatter was measured 3.5x slower
-    than the unsharded dense pass; this path's overhead is the collective
-    + partitioning only."""
+    for camera-sampled integrators; this path's overhead is the
+    collective + partitioning only."""
     cam = meta.camera
     spec = cam.film
     n_grid = common.spp_grid(spp)
     n_spp = n_grid * n_grid
+    li_fn = shard_li(li_fn, mesh, axis)
     scene_sh = replicate_scene(scene, mesh)
     ray_sh = NamedSharding(mesh, P(axis))
     rep = NamedSharding(mesh, P())
@@ -202,16 +225,8 @@ def make_sharded_render_pass(scene, meta, li_fn, mesh: Mesh, spp, seed,
          + np.arange(xs_, xs_ + xc)[None, :]).reshape(-1).astype(np.int32)
     )
     n_pix = row_major.size
-    tile = max(8, int(np.sqrt(meta.trace_rows * 128)))
-    idx = np.arange(n_pix, dtype=np.int32).reshape(yc, xc)
-    perm = np.concatenate([
-        idx[ty:ty + tile, tx:tx + tile].reshape(-1)
-        for ty in range(0, yc, tile)
-        for tx in range(0, xc, tile)
-    ])
+    perm, inv_perm = common.tile_permutation(yc, xc)
     pixel_ids_all = row_major[perm]
-    inv_perm = np.empty(n_pix, np.int32)
-    inv_perm[perm] = np.arange(n_pix, dtype=np.int32)
 
     n_dev = len(mesh.devices.reshape(-1))
     chunk_size = max(n_dev * 1024,
@@ -230,9 +245,7 @@ def make_sharded_render_pass(scene, meta, li_fn, mesh: Mesh, spp, seed,
     inv_perm_dev = global_put(inv_perm, rep)
     ids_rm = global_put(row_major, rep)
 
-    from functools import partial as _partial
-
-    @_partial(jax.jit, donate_argnums=(0, 1),
+    @partial(jax.jit, donate_argnums=(0, 1),
               in_shardings=(rep, rep, None), out_shardings=(rep, rep))
     def render_pass(color, weight, s_idx):
         def chunk_body(c, L_acc):

@@ -2,20 +2,21 @@
 process launcher.
 
 The reference is strictly single-process (std::thread pool,
-src/GoblinThreadPool.cpp); the TPU-native scaling story (SURVEY.md §2.9)
+src/GoblinThreadPool.cpp); the multi-host scaling story (SURVEY.md §2.9)
 is a jax.distributed mesh spanning hosts: every host runs the same
 program, `jax.devices()` is the *global* device list, and the `rays`
-mesh axis simply spans hosts — film reduction and gradient psums ride
-ICI within a slice and DCN across slices, inserted by the GSPMD
-partitioner. Nothing in the render code changes; what this module adds
-is the process bootstrap:
+mesh axis simply spans hosts — film reduction and gradient sums are
+collectives inserted by XLA. Nothing in the render code changes; what
+this module adds is the process bootstrap:
 
 - init_from_env(): call jax.distributed.initialize from GOBLIN_* env
   vars (no-op when unset, so single-process use is unaffected)
 - global_put(): device_put that also works when the sharding spans
   processes (each process contributes its addressable shards)
 - launch_local(): spawn N local processes with the right env for an
-  N-way CPU mesh — the test/dev stand-in for one-process-per-host
+  N-way CPU mesh — a CPU-only test stand-in for one process per host.
+  On GPUs every script runs as one process per card, never several
+  processes on one card.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def init_from_env() -> bool:
     multi-process runtime was set up.
 
     Env: GOBLIN_COORDINATOR=host:port, GOBLIN_NUM_PROCS, GOBLIN_PROC_ID.
-    On TPU pods with the standard runtime, plain
+    Where the cluster runtime tells JAX its layout, plain
     jax.distributed.initialize() (no args) also works; set
     GOBLIN_DIST=auto for that path.
     """
@@ -72,9 +73,10 @@ def global_put(arr, sharding):
 def launch_local(n_procs: int, argv: list[str], port: int = 7723,
                  devices_per_proc: int = 4, env_extra=None):
     """Spawn n_procs local processes, each a goblin process with
-    GOBLIN_* distributed env + devices_per_proc fake CPU devices —
-    the localhost stand-in for one-process-per-host pod launches.
-    Returns the list of completed subprocess results."""
+    GOBLIN_* distributed env + devices_per_proc fake CPU devices — a
+    CPU-only test stand-in for one process per host (JAX_PLATFORMS=cpu
+    is forced: several processes must not share a GPU). Returns the
+    list of completed subprocess results."""
     procs = []
     for pid in range(n_procs):
         env = dict(os.environ)

@@ -47,12 +47,9 @@ def render_context(path: str, overrides=None, chunk_size=1 << 14,
 
     import os
 
-    # The regenerative driver keeps every lane alive, which is a LOSS
-    # under the packet-union trace kernel (dead packets retire at the
-    # root for ~free while live incoherent packets walk the whole tree):
-    # measured 0.39 vs 6.7 Mrays/s on bunny/TPUv5e. Off by default;
-    # GOBLIN_REGEN=1 selects it (useful on hardware with per-ray
-    # traversal cost).
+    # GOBLIN_REGEN=1 selects the regenerative driver (persistent ray
+    # pool that refills finished lanes with new samples); off by default,
+    # the chunked scan driver is the production path.
     use_regen = os.environ.get("GOBLIN_REGEN", "0") == "1"
     if method in ("path_tracing", "path") and use_regen:
         from .integrators import wavefront
@@ -77,6 +74,9 @@ def main(argv=None):
     if not argv:
         print("usage: python -m goblin_tpu <scene.json> [render_method]")
         return 1
+    from . import runtime
+
+    runtime.enable_compile_cache()
     overrides = {}
     if len(argv) > 1:
         overrides["render_method"] = argv[1]

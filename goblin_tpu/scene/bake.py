@@ -1,6 +1,6 @@
 """Scene bake: host-side scene graph -> flat device-resident SoA arrays.
 
-This is the TPU-first replacement for the reference's pointer-based scene
+This is the device-side replacement for the reference's pointer-based scene
 graph (Scene/Primitive/Model/InstancedPrimitive, src/GoblinScene.cpp,
 GoblinPrimitive.cpp, GoblinModel.cpp): instancing is *flattened at bake
 time* — triangles are transformed to world space (normals by
@@ -96,50 +96,38 @@ class SceneMeta:
     # specular ray tree with this)
     material_kinds: tuple = ()
     output_path: str = "goblin.exr"
-    # ray-trace backend: "pallas" = TPU packet kernel (ops/pallas_trace),
-    # "jnp" = lockstep skip-link traversal (accel/traverse)
+    # ray-trace backend (see default_trace_backend): "kernel" = the GPU
+    # trace kernel (ops/trace_kernel), "interpret" = the same kernel in
+    # the Pallas interpreter, "jnp" = lockstep skip-link traversal
+    # (accel/traverse, the reference)
     trace_backend: str = "jnp"
-    trace_rows: int = 8  # packet = trace_rows * 128 rays (pallas only)
-    # (rows sweep on bunny, 8-wide kernel + batched leaf groups:
-    # 19.35 Mrays/s @8, 18.57 @16, 13.7 @4)
-    trace_ways: int = 1  # stack entries visited per kernel iteration
     trace_compact: bool = False  # stable alive-partition before trace
-    trace_aligned: bool = False  # leaf starts 8-aligned (pallas)
-    trace_wide: int = 1  # 4 = 4-wide collapsed BVH kernel
-    trace_bf16_box: bool = False  # bf16 slab tests (conservative margin)
-    # pop-time tn-culling in the wide kernel. Default OFF: the visit
-    # census measured culled pops at ~0.1% of iterations on production
-    # wavefronts while the cull's live-branch + tn-stack traffic +
-    # per-leaf packet-max reduction cost 15-17% of bounce-trace time
-    # (round 5; GOBLIN_CULL=1 re-enables for heavily-occluded scenes)
-    trace_cull: bool = False
-    trace_sort: bool = True  # morton-sort wavefronts before packet trace
+    trace_sort: bool = False  # morton-sort wavefronts before the trace
     # reorder bounce>=2 continuation wavefronts by a global stable
-    # (dead, octant, dominant-axis) sort before the packet trace.
-    # Isolated captured-wavefront timing shows wins on expensive deep
-    # bounces (bounce2 6.7 -> 2.9 ms per 64k), but END-TO-END the pass
-    # is consistently ~4% slower with it on (21.6 -> 20.8 Mrays/s on
-    # bunny even with bounce 1 peeled unsorted) — cheap chunks lose
-    # more than expensive chunks gain. Default OFF; GOBLIN_SORT_BOUNCE=1
-    # enables for scenes dominated by deep incoherent bounces.
+    # (dead, octant, dominant-axis) sort before the trace
     trace_sort_bounce: bool = False
     world_bounds: tuple = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
 
 
+TRACE_BACKENDS = ("kernel", "interpret", "jnp")
+
+
 def default_trace_backend() -> str:
-    """Pallas packet kernel on TPU; jnp lockstep elsewhere. Overridable
-    via GOBLIN_TRACE=pallas|jnp."""
+    """The trace kernel on a GPU, the jnp reference elsewhere.
+    GOBLIN_TRACE=kernel|interpret|jnp overrides; asking for "kernel" off
+    a GPU fails at trace time rather than falling back."""
     import os
 
     env = os.environ.get("GOBLIN_TRACE")
-    if env in ("pallas", "jnp"):
+    if env:
+        if env not in TRACE_BACKENDS:
+            raise ValueError(
+                f"GOBLIN_TRACE={env!r}: expected one of {TRACE_BACKENDS}"
+            )
         return env
     import jax
 
-    try:
-        return "pallas" if jax.default_backend() == "tpu" else "jnp"
-    except Exception:
-        return "jnp"
+    return "kernel" if jax.default_backend() == "gpu" else "jnp"
 
 
 def _pack_mat_rows(materials) -> np.ndarray:
@@ -215,38 +203,19 @@ class SceneBuilder:
 
     # -- bake --------------------------------------------------------------
 
-    def bake(self, max_leaf: int | None = None, trace_backend: str | None = None,
-             trace_rows: int = 8):
+    def bake(self, max_leaf: int | None = None,
+             trace_backend: str | None = None):
         import os
 
         if trace_backend is None:
             trace_backend = default_trace_backend()
+        if trace_backend not in TRACE_BACKENDS:
+            raise ValueError(f"trace_backend {trace_backend!r}: expected "
+                             f"one of {TRACE_BACKENDS}")
         if max_leaf is None:
-            # larger leaves amortize the packet kernel's scalar traversal;
-            # the jnp path unrolls max_leaf gathers per step so stays small.
-            # Measured on bunny with the 4-wide aligned kernel: 32 best
-            # (10.6@leaf32 vs 10.3@16, 10.2@64 Mrays/s at rows=32)
-            max_leaf = 32 if trace_backend == "pallas" else 4
-            max_leaf = int(os.environ.get("GOBLIN_MAX_LEAF", max_leaf))
-        if trace_backend == "pallas" and max_leaf % 8 != 0:
-            # the packet kernel's aligned leaf extraction requires
-            # max_leaf % 8 == 0; failing later at trace time with the
-            # kernel assert is an opaque crash for a documented knob
-            # (ADVICE r4) — round up with a clear message instead
-            rounded = ((max_leaf + 7) // 8) * 8
-            print(
-                f"[bake] max_leaf={max_leaf} rounded up to {rounded}: "
-                "the pallas packet kernel needs max_leaf % 8 == 0"
-            )
-            max_leaf = rounded
-        trace_rows = int(os.environ.get("GOBLIN_ROWS", trace_rows))
-        trace_ways = int(os.environ.get("GOBLIN_WAYS", 1))
+            # both traversals unroll max_leaf triangle tests per leaf step
+            max_leaf = int(os.environ.get("GOBLIN_MAX_LEAF", 4))
         trace_compact = os.environ.get("GOBLIN_COMPACT", "0") == "1"
-        # 8-wide collapsed BVH is the production traversal (18.65 vs
-        # 18.39 wide4 / ~15 binary on bunny); GOBLIN_WIDE in {1,4,8}
-        trace_wide = int(os.environ.get("GOBLIN_WIDE", 8))
-        trace_bf16 = os.environ.get("GOBLIN_BF16BOX", "0") == "1"
-        trace_cull = os.environ.get("GOBLIN_CULL", "0") == "1"
         tri_v = [np.zeros((0, 3, 3), np.float32)]
         tri_n = [np.zeros((0, 3, 3), np.float32)]
         tri_uv = [np.zeros((0, 3, 2), np.float32)]
@@ -351,25 +320,9 @@ class SceneBuilder:
             T = 1
 
         bvh = build_bvh(V[:, 0], V[:, 1], V[:, 2], max_leaf=max_leaf)
-        if trace_backend == "pallas":
-            # 8-align leaf starts so the packet kernel extracts whole
-            # triangle groups with one reduction (see accel.bvh)
-            from ..accel.bvh import align_leaves
-
-            bvh = align_leaves(bvh, align=8)
         order = bvh.order
-        sentinel = order < 0  # leaf padding -> degenerate zero triangle
-        safe = np.where(sentinel, 0, order)
-        V, N, UV = V[safe], N[safe], UV[safe]
-        MAT, LIGHT = MAT[safe], LIGHT[safe]
-        if sentinel.any():
-            V = V.copy()
-            V[sentinel] = 0.0  # v0=v1=v2 -> zero-area, never hit
-            LIGHT = LIGHT.copy()
-            LIGHT[sentinel] = -1
-            MAT = MAT.copy()
-            MAT[sentinel] = 0
-        T = V.shape[0]
+        V, N, UV = V[order], N[order], UV[order]
+        MAT, LIGHT = MAT[order], LIGHT[order]
 
         # world bounds for directional/IBL emission + auto radii —
         # includes analytic spheres and disks (reference scene bbox spans
@@ -525,18 +478,6 @@ class SceneBuilder:
             "tex_const": tex_sys.const,
             "ftex_const": ftex_sys.const,
         }
-        if trace_backend == "pallas":
-            from ..ops.pallas_trace import collapse4, pack_scene
-
-            packed = pack_scene(bvh.bounds, bvh.meta, soup_np)
-            scene["pk_nodes"] = jnp.asarray(packed["nodes"])
-            scene["pk_meta"] = jnp.asarray(packed["meta"])
-            scene["pk_tris"] = jnp.asarray(packed["tris"])
-            if trace_wide in (4, 8):
-                nb4, nm4 = collapse4(bvh.bounds, bvh.meta, width=trace_wide)
-                scene["pk_nb4"] = jnp.asarray(nb4)
-                scene["pk_nm4"] = jnp.asarray(nm4)
-
         if self.vol_grid is not None:
             scene["vol_grid"] = jnp.asarray(self.vol_grid)
 
@@ -617,16 +558,7 @@ class SceneBuilder:
             material_kinds=tuple(sorted({m.kind for m in self.materials})),
             output_path=self.output_path,
             trace_backend=trace_backend,
-            trace_rows=trace_rows,
-            trace_ways=trace_ways,
             trace_compact=trace_compact,
-            trace_aligned=trace_backend == "pallas",
-            trace_wide=trace_wide,
-            trace_bf16_box=trace_bf16,
-            trace_cull=trace_cull,
-            # measured on bunny: morton/octant ray sorting costs more
-            # (argsort + 12 gathers) than the packet-coherence it buys at
-            # 512x384; off by default, GOBLIN_SORT=1 for huge wavefronts
             trace_sort=os.environ.get("GOBLIN_SORT", "0") == "1",
             trace_sort_bounce=os.environ.get("GOBLIN_SORT_BOUNCE", "0")
             == "1",

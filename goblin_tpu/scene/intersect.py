@@ -26,10 +26,9 @@ HIT_EPS_SCALE = 1e-3
 
 
 def _morton_key(o, d, mint, maxt, bmin, inv_ext):
-    """Packet-coherence sort key: 6-bit-per-axis Morton code of the ray
-    origin within the scene bounds, 3-bit direction octant below it, and
-    a dead-ray flag on top so dead lanes compact into whole packets that
-    exit at the root box test."""
+    """Ray-coherence sort key: 6-bit-per-axis Morton code of the ray
+    origin within the scene bounds, 3-bit direction octant above it, and
+    a dead-ray flag on top so dead lanes gather at the end."""
     q = jnp.clip((o - bmin) * inv_ext * 63.0, 0.0, 63.0).astype(jnp.int32)
 
     def spread(x):  # bits -> every 3rd position (standard morton masks)
@@ -42,35 +41,25 @@ def _morton_key(o, d, mint, maxt, bmin, inv_ext):
     morton = (
         spread(q[..., 0]) | (spread(q[..., 1]) << 1) | (spread(q[..., 2]) << 2)
     )
-    octant = (
+    dead = (maxt <= mint).astype(jnp.int32)
+    return (dead << 24) | (_octant(d) << 18) | morton
+
+
+def _octant(d):
+    return (
         (d[..., 0] < 0).astype(jnp.int32)
         | ((d[..., 1] < 0).astype(jnp.int32) << 1)
         | ((d[..., 2] < 0).astype(jnp.int32) << 2)
     )
-    dead = (maxt <= mint).astype(jnp.int32)
-    # octant above morton: packets share a traversal *order* (front-to-
-    # back child choice is per-packet scalar), which matters more than
-    # origin locality for hemisphere-sampled bounce directions
-    return (dead << 24) | (octant << 18) | morton
 
 
 def _octant_partition(d, mint, maxt):
     """Stable counting-sort permutation over a 4-bit key (dead flag on
-    top of the direction octant). Bounce wavefronts keep their screen-
-    tile origin coherence (the partition is stable) while gaining the
-    per-packet traversal-order coherence the packet kernel needs (child
-    visit order is a per-packet scalar decision) AND compacting masked-
-    dead lanes into whole packets that retire at the root box test.
-    O(16R) cumsum work — no argsort (whose bitonic cost was measured to
-    eat the kernel-side win in production)."""
-    octant = (
-        (d[..., 0] < 0).astype(jnp.int32)
-        | ((d[..., 1] < 0).astype(jnp.int32) << 1)
-        | ((d[..., 2] < 0).astype(jnp.int32) << 2)
-    )
+    top of the direction octant): rays keep their screen-tile order
+    within a bucket while neighbouring rays share a direction octant,
+    and dead lanes gather at the end. O(16R) cumsum work, no sort."""
     dead = (maxt <= mint).astype(jnp.int32)
-    key = (dead << 3) | octant  # [0, 16)
-    R = key.shape[0]
+    key = (dead << 3) | _octant(d)  # [0, 16)
     onehot = (key[:, None] == jnp.arange(16, dtype=jnp.int32)[None, :])
     ranks = jnp.cumsum(onehot.astype(jnp.int32), axis=0)  # rank+1 in bucket
     totals = ranks[-1]
@@ -79,123 +68,74 @@ def _octant_partition(d, mint, maxt):
     )
     rank = jnp.take_along_axis(ranks, key[:, None], axis=1)[:, 0] - 1
     pos = offsets[key] + rank
-    # permutation inverse by argsort (scatter is a TPU slow path)
+    # permutation inverse by argsort
     return jnp.argsort(pos)
 
 
-def trace_rays(scene, meta: SceneMeta, o, d, mint, maxt, any_hit=False,
-               sort=None):
-    """BVH trace over the wavefront, dispatched by meta.trace_backend.
-
-    pallas: the VMEM packet kernel (ops/pallas_trace.trace_packets) —
-    rays padded to a whole number of trace_rows*128 packets with dead
-    rays (mint=BIG_T, maxt=0) whose box tests always fail, and Morton-
-    sorted (origin + direction octant) so each packet's rays traverse a
-    similar node set; dead lanes cluster into all-dead packets that
-    retire at the root (the wavefront-compaction analogue — SURVEY §2.9).
-    jnp: the lockstep skip-link traversal. Both replace the reference's
-    per-thread stack walk (src/GoblinBVH.cpp:156-280).
-
-    sort: per-call override of meta.trace_sort. Camera rays arrive in
-    screen-tile order (already packet-coherent — sorting them costs more
-    than it buys); bounce/shadow wavefronts are incoherent AND carry
-    masked-dead lanes, so the Morton+octant sort (dead flag on top) both
-    re-coheres packets and compacts dead lanes into whole packets that
-    retire at the root box test (+27% measured on bounce rays, VERDICT
-    r4).
-    """
-    if meta.trace_backend != "pallas" or "pk_nodes" not in scene:
-        return trace(
-            scene["node_bounds"], scene["node_meta"], scene["tri_soup"],
-            o, d, mint, maxt, max_leaf=meta.max_leaf, any_hit=any_hit,
-        )
-    from ..ops.pallas_trace import trace_packets
-
-    R = o.shape[0]
-    packet = meta.trace_rows * 128
-    order = None
-    if sort is None:
-        sort = meta.trace_sort
-    if sort == "dir" and R > packet:
-        # global stable sort on (dead, octant, dominant axis) — 64 keys.
-        # Bounce wavefronts keep screen-tile origin order WITHIN each
-        # direction bin (stable sort), so packets gain a shared
-        # traversal order without losing origin locality entirely;
-        # measured on captured bounce wavefronts with the lean kernel:
-        # bounce2 6.7 -> 2.9 ms, bounce3 7.6 -> 4.3 ms per 64k trace
-        # (round 5; the earlier octant-only attempt lost under the old
-        # cull-heavy kernel).
-        octant = (
-            (d[..., 0] < 0).astype(jnp.int32)
-            | ((d[..., 1] < 0).astype(jnp.int32) << 1)
-            | ((d[..., 2] < 0).astype(jnp.int32) << 2)
-        )
+def _ray_order(meta: SceneMeta, o, d, mint, maxt, sort):
+    """Optional coherence permutation applied before the trace (None =
+    trace in the order given). sort: "dir" = stable (dead, octant,
+    dominant axis) sort; "octant" = counting-sort partition; any other
+    truthy value = Morton + octant sort; meta.trace_compact = stable
+    alive-first partition."""
+    if sort == "dir":
         axis = jnp.argmax(jnp.abs(d), axis=-1).astype(jnp.int32)
         dead = (maxt <= mint).astype(jnp.int32)
-        key = (dead << 5) | (octant << 2) | axis
-        order = jnp.argsort(key, stable=True)
-        o, d, mint, maxt = (v[order] for v in (o, d, mint, maxt))
-    elif sort == "octant" and R > packet:
-        order = _octant_partition(d, mint, maxt)
-        o, d, mint, maxt = (v[order] for v in (o, d, mint, maxt))
-    elif sort and R > packet:
+        key = (dead << 5) | (_octant(d) << 2) | axis
+        return jnp.argsort(key, stable=True)
+    if sort == "octant":
+        return _octant_partition(d, mint, maxt)
+    if sort:
         bmin, bmax = meta.world_bounds
         bmin = jnp.asarray(bmin, jnp.float32)
         inv_ext = 1.0 / jnp.maximum(
             jnp.asarray(bmax, jnp.float32) - bmin, 1e-12
         )
-        key = _morton_key(o, d, mint, maxt, bmin, inv_ext)
-        order = jnp.argsort(key)
-        o, d, mint, maxt = (v[order] for v in (o, d, mint, maxt))
-    elif getattr(meta, "trace_compact", False) and R > packet:
-        # stable alive-partition (VERDICT r3 1b): densify live lanes to
-        # the front IN ORIGINAL ORDER (a cumsum-built permutation, no
-        # argsort) so the masked-dead lanes — scattered across packets
-        # by the bounce loop — collapse into whole all-dead packets that
-        # retire at the root box test. Live lanes keep their screen-tile
-        # coherence because the partition is stable.
+        return jnp.argsort(_morton_key(o, d, mint, maxt, bmin, inv_ext))
+    if meta.trace_compact:
+        # stable alive-partition: live lanes to the front in their
+        # original order (a cumsum-built permutation), dead lanes after
         alive = maxt > mint
         na = jnp.cumsum(alive.astype(jnp.int32))
-        n_alive = na[-1]
         nd = jnp.cumsum((~alive).astype(jnp.int32))
-        pos = jnp.where(alive, na - 1, n_alive + nd - 1)
-        order = jnp.argsort(pos)
-        o, d, mint, maxt = (v[order] for v in (o, d, mint, maxt))
-    pad = (-R) % packet
-    if pad:
-        o = jnp.concatenate([o, jnp.zeros((pad, 3), o.dtype)])
-        d = jnp.concatenate([d, jnp.ones((pad, 3), d.dtype)])
-        mint = jnp.concatenate([mint, jnp.full((pad,), BIG_T, mint.dtype)])
-        maxt = jnp.concatenate([maxt, jnp.zeros((pad,), maxt.dtype)])
-    if getattr(meta, "trace_wide", 1) in (4, 8) and "pk_nb4" in scene:
-        from ..ops.pallas_trace import trace_packets4
+        pos = jnp.where(alive, na - 1, na[-1] + nd - 1)
+        return jnp.argsort(pos)
+    return None
 
-        hit, t, tri, b1, b2 = trace_packets4(
-            scene["pk_nb4"], scene["pk_nm4"], scene["pk_tris"],
-            o, d, mint, maxt,
-            max_leaf=meta.max_leaf, any_hit=any_hit, rows=meta.trace_rows,
-            width=meta.trace_wide,
-            bf16_box=getattr(meta, "trace_bf16_box", False),
-            ways=getattr(meta, "trace_ways", 1),
-            cull=getattr(meta, "trace_cull", False),
-        )
-    else:
-        hit, t, tri, b1, b2 = trace_packets(
-            scene["pk_nodes"], scene["pk_meta"], scene["pk_tris"],
-            o, d, mint, maxt,
-            max_leaf=meta.max_leaf, any_hit=any_hit, rows=meta.trace_rows,
-            ways=getattr(meta, "trace_ways", 1),
-            aligned=getattr(meta, "trace_aligned", False),
-        )
-    if pad:
-        hit, t, tri, b1, b2 = (v[:R] for v in (hit, t, tri, b1, b2))
+
+def trace_rays(scene, meta: SceneMeta, o, d, mint, maxt, any_hit=False,
+               sort=None):
+    """BVH trace over the wavefront, dispatched by meta.trace_backend:
+    "kernel" runs the GPU kernel (ops/trace_kernel), "interpret" the same
+    kernel in the Pallas interpreter, "jnp" the lockstep reference
+    (accel/traverse). All replace the reference's per-thread stack walk
+    (src/GoblinBVH.cpp:156-280).
+
+    sort: per-call override of meta.trace_sort (see _ray_order). The
+    permutation, when there is one, wraps whichever trace runs, and the
+    results come back in the caller's order.
+    """
+    if sort is None:
+        sort = meta.trace_sort
+    order = _ray_order(meta, o, d, mint, maxt, sort)
     if order is not None:
-        # inverse permutation via argsort — NOT a scatter: XLA's TPU
-        # scatter lowering measured 2.6 ms for 64k lanes in-jit vs
-        # 0.03 ms for the extra sort (round 5)
+        o, d, mint, maxt = (v[order] for v in (o, d, mint, maxt))
+    args = (scene["node_bounds"], scene["node_meta"], scene["tri_soup"],
+            o, d, mint, maxt)
+    if meta.trace_backend == "jnp":
+        res = trace(*args, max_leaf=meta.max_leaf, any_hit=any_hit)
+    else:
+        from ..ops import trace_kernel
+
+        res = trace_kernel.trace(
+            *args, max_leaf=meta.max_leaf, any_hit=any_hit,
+            interpret=meta.trace_backend == "interpret",
+        )
+    if order is not None:
+        # inverse permutation via argsort
         inv = jnp.argsort(order)
-        hit, t, tri, b1, b2 = (v[inv] for v in (hit, t, tri, b1, b2))
-    return TraceResult(hit, t, tri, b1, b2)
+        res = TraceResult(*(v[inv] for v in res))
+    return res
 
 
 def _disk_pass(scene, o, d, mint, cur_t):

@@ -3,7 +3,7 @@
 The reference's Material class hierarchy (src/GoblinMaterial.{h,cpp}) becomes
 a type-id + SoA parameter table: every lane carries a material row and all
 material models are evaluated branch-free with masked selects — the
-TPU-idiomatic replacement for C++ virtual dispatch. The BSDFType bitmask
+wavefront replacement for C++ virtual dispatch. The BSDFType bitmask
 semantics (matchType, hemisphere-stripped sample type, BSDF_NULL alpha
 punch-through, Radiance-vs-Importance transport) are preserved exactly;
 they are load-bearing for PT shadow rays and BDPT

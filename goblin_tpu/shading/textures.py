@@ -5,8 +5,8 @@ checkerboard / scale / image with uv or spherical mappings — becomes a
 static per-scene *program*: textures are topologically sorted at bake time
 and evaluated in order as dense vectorized ops over the whole wavefront,
 each lane then gathers its material's texture value by id. With the
-handful of textures a scene declares this is cheaper on TPU than per-lane
-dispatch, and it keeps control flow static for XLA.
+handful of textures a scene declares this avoids per-lane dispatch, and it
+keeps control flow static for XLA.
 
 Image data lives in one flat f32 atlas; each image texture stores
 (offset, height, width, channels). Filtering: nearest, bilinear,
@@ -21,6 +21,8 @@ from dataclasses import dataclass, field
 
 import jax.numpy as jnp
 import numpy as np
+
+from ..core import vecmath as vm
 
 TEX_CONSTANT = 0
 TEX_CHECKERBOARD = 1
@@ -43,8 +45,8 @@ EWA_TAPS = 8  # fixed taps along the footprint's major axis (EWA approx)
 
 
 def _build_pyramid(img: np.ndarray):
-    """Resize to pow2 (bilinear) then 2x2 box-average down to 1x1 — the
-    TPU-friendly analogue of the reference's gaussian resize + pyramid
+    """Resize to pow2 (bilinear) then 2x2 box-average down to 1x1 — a
+    simpler analogue of the reference's gaussian resize + pyramid
     (src/GoblinTexture.cpp:39-128, 524-598). Returns list of (H,W,3)."""
 
     def pow2(n):
@@ -353,7 +355,7 @@ class TextureSystem:
         SphericalMapping, src/GoblinTexture.cpp:293-307)."""
         if s.mapping == MAP_SPHERICAL and p is not None:
             m = np.asarray(s.world_to_tex, np.float32)
-            q = p @ m[:3, :3].T + m[:3, 3]
+            q = vm.mat3_apply(jnp.asarray(m[:3, :3]), p) + m[:3, 3]
             ln = jnp.sqrt(jnp.maximum(jnp.sum(q * q, axis=-1), 1e-30))
             vec = q / ln[..., None]
             theta = jnp.arccos(jnp.clip(vec[..., 2], -1.0, 1.0))

@@ -256,7 +256,7 @@ def light_trace_s1_contributions(scene, meta, path_ids, s_idx, seed,
     # camera start: random film position WITHIN THE CROP WINDOW — t1/t0
     # and the driver's path-count normalization are both based on
     # spp * crop pixel count, so s1 paths landing outside the crop would
-    # misweight the estimate (ADVICE r4)
+    # misweight the estimate
     xs_, xc, ys_, yc = spec.crop_window()
     px = xs_ + hash_uniform(seed, path_ids, s_idx, 0x7FFD, 0) * xc
     py = ys_ + hash_uniform(seed, path_ids, s_idx, 0x7FFD, 1) * yc

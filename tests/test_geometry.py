@@ -128,7 +128,8 @@ f 1 2 3 4
 
 
 def test_reference_plane_obj_loads():
-    mesh = load_obj("/root/reference/examples/models/plane.obj")
+    mesh = load_obj(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "models", "plane.obj"))
     assert mesh.num_faces >= 2
     # plane should be flat in y
     assert (

@@ -94,10 +94,12 @@ def test_two_process_mesh_matches_single(tmp_path):
 
     from goblin_tpu.parallel.multihost import launch_local
 
+    from goblin_tpu import runtime
+
     results = launch_local(2, [script], port=7731, devices_per_proc=4,
                            env_extra={
                                "JAX_COMPILATION_CACHE_DIR":
-                                   "/root/.cache/jax_comp_cache",
+                                   runtime.enable_compile_cache(),
                                "JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES": "-1",
                                "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "0.0",
                            })

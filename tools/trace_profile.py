@@ -1,118 +1,89 @@
 #!/usr/bin/env python
-"""Per-stage profile of the production render pass (SURVEY §5 profiling
-story; round-4 verdict item 3).
+"""jax.profiler trace of one production path-tracing pass on bunny.
 
-Two instruments:
-1. kernel visit census — the stats-mode wide kernel counts inner/leaf
-   visits per packet on REAL captured wavefronts, and combined with the
-   measured kernel time yields ns/visit and the inner-vs-leaf cost
-   split (the number that decides where kernel tuning effort goes);
-2. jax.profiler trace of one full production render pass, written to
-   --trace-dir (view with tensorboard/xprof, or sum the trace.json.gz
-   event durations directly). Round-5 reading of the device trace: the
-   bounce-scan trace kernel is ~74% of the pass (62 of 84 ms),
-   shading/NEE fusions ~12 ms, shadow+primary traces ~11 ms — so the
-   100 Mrays/s north star needs BOTH kernel and shading wins.
+Runs bench.py's pass (512x384, depth 5, 64k-ray chunks) once to compile,
+traces the next pass into --trace-dir (default <repo>/profile_trace), and
+prints the device time per operation name, largest first, read back from
+the trace with jax.profiler.ProfileData. Needs a GPU:
 
-Run on the real chip: python tools/trace_profile.py
+    python tools/trace_profile.py [--trace-dir DIR] [--top N]
 """
+
+import argparse
+import collections
+import glob
 import os
 import sys
-import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      "/root/.cache/jax_comp_cache")
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 
-from goblin_tpu.assets import ensure_bunny_obj
-from goblin_tpu.scene.loader import load_scene
+def device_op_times(trace_dir):
+    """{op name: (total ns, count)} over the GPU planes of the newest
+    .xplane.pb under trace_dir, and the window the events span (ns)."""
+    import jax
 
-
-def visit_census(scene, meta, waves):
-    from goblin_tpu.ops.pallas_trace import trace_packets4
-
-    rows = meta.trace_rows
-    print(f"\nkernel visit census (width={meta.trace_wide}, rows={rows}, "
-          f"max_leaf={meta.max_leaf}):")
-    print(f"{'class':10s} {'ms':>7s} {'Mray/s':>7s} {'inner/pkt':>10s} "
-          f"{'leaf/pkt':>9s} {'ns/visit':>9s}")
-    for name, w in waves.items():
-        R = w["o"].shape[0]
-        o, d = jnp.asarray(w["o"]), jnp.asarray(w["d"])
-        mint, maxt = jnp.asarray(w["mint"]), jnp.asarray(w["maxt"])
-
-        def run(stats):
-            return trace_packets4(
-                scene["pk_nb4"], scene["pk_nm4"], scene["pk_tris"],
-                o, d, mint, maxt, max_leaf=meta.max_leaf,
-                any_hit=w["any_hit"], rows=rows, width=meta.trace_wide,
-                ways=meta.trace_ways, stats=stats,
-            )
-
-        counts = np.asarray(jax.block_until_ready(run(True))[5])
-        out = jax.block_until_ready(run(False))
-        t0 = time.perf_counter()
-        for _ in range(10):
-            out = run(False)
-        jax.block_until_ready(out)
-        dt = (time.perf_counter() - t0) / 10
-        n_inner = counts[:, 0].sum()
-        n_leaf = counts[:, 1].sum()
-        n_iter = counts[:, 2].sum()
-        P = counts.shape[0]
-        ns_visit = dt * 1e9 / max(n_inner + n_leaf, 1)
-        ns_iter = dt * 1e9 / max(n_iter, 1)
-        print(f"{name:10s} {dt * 1e3:7.2f} {R / dt / 1e6:7.2f} "
-              f"{n_inner / P:10.1f} {n_leaf / P:9.1f} {ns_visit:9.1f} "
-              f"iters/pkt={n_iter / P:7.1f} ns/iter={ns_iter:7.1f}")
+    path = max(glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                         recursive=True), key=os.path.getmtime)
+    data = jax.profiler.ProfileData.from_file(path)
+    totals = collections.defaultdict(lambda: [0, 0])
+    lo, hi = None, 0
+    for plane in data.planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            for ev in line.events:
+                totals[ev.name][0] += ev.duration_ns
+                totals[ev.name][1] += 1
+                lo = ev.start_ns if lo is None else min(lo, ev.start_ns)
+                hi = max(hi, ev.start_ns + ev.duration_ns)
+    return dict(totals), (hi - lo if lo is not None else 0)
 
 
-def profiler_trace(scene, meta, trace_dir):
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--trace-dir",
+                        default=os.path.join(_REPO, "profile_trace"))
+    parser.add_argument("--top", type=int, default=15)
+    args = parser.parse_args()
+
+    import jax
+    import jax.numpy as jnp
+
+    from goblin_tpu import runtime
+    from goblin_tpu.assets import ensure_bunny_obj
     from goblin_tpu.camera import film as film_mod
     from goblin_tpu.integrators import common
     from goblin_tpu.integrators.path import make_li
+    from goblin_tpu.scene.loader import load_scene
 
+    device = runtime.require_gpu()
+    runtime.enable_compile_cache()
+    ensure_bunny_obj(os.path.join(_REPO, "examples", "models", "bunny.obj"))
+    scene, meta = load_scene(
+        os.path.join(_REPO, "examples", "bunny.json"),
+        {"render_method": "path_tracing", "max_ray_depth": 5},
+    )
     render_pass, _ = common.make_render_pass(
         scene, meta, make_li(meta), spp=4, seed=0, chunk_size=1 << 16
     )
     color, weight = film_mod.new_film(meta.camera.film)
     color, weight = render_pass(color, weight, jnp.int32(0))
     jax.block_until_ready((color, weight))
-    with jax.profiler.trace(trace_dir):
+    with jax.profiler.trace(args.trace_dir):
         color, weight = render_pass(color, weight, jnp.int32(1))
         jax.block_until_ready((color, weight))
-    print(f"\nprofiler trace written to {trace_dir} "
-          "(tensorboard --logdir or xprof)")
 
-
-def main():
-    ensure_bunny_obj(os.path.join(_REPO, "examples", "models",
-                                  "bunny.obj"))
-    scene, meta = load_scene(
-        os.path.join(_REPO, "examples", "bunny.json"),
-        {"render_method": "path_tracing", "max_ray_depth": 5},
-    )
-    sys.path.insert(0, _REPO)
-    from bench_trace import capture_wavefronts
-
-    print("capturing production wavefronts...")
-    waves = capture_wavefronts(scene, meta)
-    for w in waves.values():
-        reps = (1 << 16) // w["o"].shape[0]
-        for k in ("o", "d", "mint", "maxt"):
-            w[k] = np.tile(w[k], (reps,) + (1,) * (w[k].ndim - 1))
-    visit_census(scene, meta, waves)
-    trace_dir = (sys.argv[sys.argv.index("--trace-dir") + 1]
-                 if "--trace-dir" in sys.argv else "/tmp/goblin_trace")
-    try:
-        profiler_trace(scene, meta, trace_dir)
-    except Exception as e:  # profiling is best-effort on remote backends
-        print(f"profiler trace skipped: {e}")
+    totals, window = device_op_times(args.trace_dir)
+    busy = sum(t for t, _ in totals.values())
+    print(f"{device['device_kind']}, trace {meta.trace_backend}: {len(totals)} "
+          f"device op names, summed device time {busy / 1e6:.3f} ms over "
+          f"a {window / 1e6:.3f} ms window")
+    for name, (t, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[
+            :args.top]:
+        print(f"{t / 1e6:9.3f} ms {100.0 * t / max(busy, 1):5.1f}% "
+              f"x{n:<5d} {name[:100]}")
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ Phases:
   c  every render method through render.render_context on
      examples/bunny.json at 512x384, checked for finite, non-black images
      with a plausible mean; path tracing and SPPM at 128x96 on the GPU
-     against the CPU device by 8x8 block means; the dot / cuBLAS count of
-     the compiled path-tracing pass
+     against the CPU device by 8x8 block means (SPPM split into its direct
+     and photon parts, and its kernel render against the jnp trace's on
+     the card); the dot / cuBLAS count of the compiled path-tracing pass
   d  the bench pass (bench.py's path-tracing pass, 4 spp at depth 5, plus
      one SPPM iteration at depth 20) with the trace kernel and with the
      plain jnp trace, alternating kernel, jnp, jnp, kernel
@@ -65,19 +66,24 @@ T_RTOL = 1e-5
 # own contraction; at most 4 lanes of 4096
 MIN_CPU_LANE_AGREEMENT = 0.999
 # GPU against CPU renders, 8x8 block means: the renders draw the same
-# samples, but a path can diverge after a float rounding difference
-# (glass bunny: refraction amplifies it) and the film's scatter splats
-# are summed by atomics in no fixed order on the GPU. A block passes
-# within 2% or 1e-3; the image means agree to 0.5%. Up to 5% of the
-# blocks may fail: an SPPM photon whose path diverges, or whose hit
-# rounds into a neighbouring hash cell, carries its whole flux to other
-# pixels (observed on the H100: 13 of 576 block channels at 2 iterations,
-# 128x96, image means 0.020863 against 0.020876), while a broken GPU path
-# moves the mean or most blocks.
+# samples, but a path can diverge after a float rounding difference (the
+# glass bunny's refraction amplifies it) and the film's scatter splats are
+# summed by atomics in no fixed order on the GPU. A block passes within 2%
+# or 1e-3, and the image means agree to 0.5%. Path tracing and SPPM's
+# camera-path part (its direct light) must pass in every block.
 BLOCK_RTOL = 0.02
 BLOCK_ATOL = 1e-3
-MAX_BAD_BLOCK_SHARE = 0.05
 MEAN_RTOL = 0.005
+# SPPM's photon part alone may leave a few blocks outside. Photon paths
+# part under XLA:GPU's and XLA:CPU's rounding, more with every bounce
+# (H100 against the CPU on bunny 128x96: 0.8% of photons at their first
+# hit, an eighth by the tenth, half by the twentieth), and each carries
+# its flux to other pixels. Over 3 seeds at 2 and 8 iterations, 9 to 21
+# of the 576 block channels fell outside (at most 3.6%), 5 at 32
+# iterations; the kernel's and the jnp trace's renders on the card were
+# equal to 1.5e-8, so the trace is not the cause. Two renders of other
+# seeds differ in ~40% of the blocks. The bound is twice the worst reading.
+SPPM_PHOTON_MAX_BAD_SHARE = 0.075
 
 
 class SmokeFailure(Exception):
@@ -298,6 +304,54 @@ def count_dots(hlo_text: str):
     return n_dot, n_blas
 
 
+def compare_blocks(label, got, ref, max_bad_share=0.0):
+    """8x8 block means of two images within BLOCK_RTOL or BLOCK_ATOL, in
+    all blocks but a share of at most max_bad_share."""
+    import numpy as np
+
+    bg, bc = block_means(got), block_means(ref)
+    diff = np.abs(bg - bc)
+    bad = diff > np.maximum(BLOCK_RTOL * np.abs(bc), BLOCK_ATOL)
+    log(f"[c] {label}: max block diff {float(diff.max()):.3e}, blocks "
+        f"outside tolerance {int(bad.sum())} of {bad.size} (allowed "
+        f"{int(max_bad_share * bad.size)})")
+    check(bad.mean() <= max_bad_share, f"{label}: block means differ")
+
+
+def check_means(method, got, ref):
+    import numpy as np
+
+    mg, mr = float(np.mean(got)), float(np.mean(ref))
+    log(f"[c] {method} 128x96 image means GPU {mg:.6f}, CPU {mr:.6f}")
+    check(abs(mg - mr) <= MEAN_RTOL * abs(mr),
+          f"{method}: GPU and CPU image means differ")
+
+
+def sppm_parts(path, backend, device, iterations=2):
+    """SPPM through the same call render_context makes, on one device:
+    the image, and the per-pixel radiance before the film filter split
+    into its camera-path (direct) and photon parts."""
+    import jax
+    import numpy as np
+
+    from goblin_tpu.integrators.sppm import render_sppm
+    from goblin_tpu.scene.loader import load_scene
+
+    with trace_backend(backend), jax.default_device(device):
+        scene, meta = load_scene(path, {
+            "render_method": "sppm", "sample_per_pixel": iterations,
+            "max_ray_depth": 20})
+        img, st = render_sppm(scene, meta, chunk_size=1 << 14,
+                              return_state=True)
+        img = np.asarray(jax.block_until_ready(img))
+    r2 = np.asarray(st["radius"])[:, None] ** 2
+    photon = np.asarray(st["Tau"]) / np.maximum(
+        st["emitted"] * np.pi * r2, 1e-20)
+    return {"image": img,
+            "direct": (np.asarray(st["Ld_acc"]) / iterations).reshape(img.shape),
+            "photon": photon.reshape(img.shape)}
+
+
 def bench_pass(backend: str):
     """bench.py's path-tracing pass (4 spp, depth 5, 64k-ray chunks),
     compiled ahead of the timed calls."""
@@ -347,29 +401,26 @@ def phase_c():
 
     small = scene_at(128, 96)
     cpu = jax.devices("cpu")[0]
-    for method, spp, depth in (("path_tracing", 4, 5), ("sppm", 2, 20)):
-        overrides = {"render_method": method, "sample_per_pixel": spp,
-                     "max_ray_depth": depth}
-        img_gpu, _ = render.render_context(small, overrides, progress=False)
-        t0 = time.perf_counter()
-        with trace_backend("jnp"), jax.default_device(cpu):
-            img_cpu, _ = render.render_context(small, overrides,
-                                               progress=False)
-            img_cpu = np.asarray(jax.block_until_ready(img_cpu))
-        dt = time.perf_counter() - t0
-        bg = block_means(np.asarray(img_gpu))
-        bc = block_means(img_cpu)
-        tol = np.maximum(BLOCK_RTOL * np.abs(bc), BLOCK_ATOL)
-        bad = np.abs(bg - bc) > tol
-        log(f"[c] {method} 128x96 GPU vs CPU ({dt:.1f} s on the CPU): "
-            f"max block diff {float(np.abs(bg - bc).max()):.3e}, blocks "
-            f"outside tolerance {int(bad.sum())} of {bad.size}, means "
-            f"{float(bg.mean()):.6f} / {float(bc.mean()):.6f}")
-        check(bad.mean() <= MAX_BAD_BLOCK_SHARE,
-              f"{method}: GPU and CPU block means differ")
-        check(abs(float(bg.mean()) - float(bc.mean()))
-              <= MEAN_RTOL * abs(float(bc.mean())),
-              f"{method}: GPU and CPU image means differ")
+    overrides = {"render_method": "path_tracing", "sample_per_pixel": 4,
+                 "max_ray_depth": 5}
+    img_gpu, _ = render.render_context(small, overrides, progress=False)
+    with trace_backend("jnp"), jax.default_device(cpu):
+        img_cpu, _ = render.render_context(small, overrides, progress=False)
+    compare_blocks("path_tracing 128x96 GPU vs CPU", np.asarray(img_gpu),
+                   np.asarray(img_cpu))
+    check_means("path_tracing", img_gpu, img_cpu)
+
+    sppm = {"kernel": sppm_parts(small, "kernel", jax.devices()[0]),
+            "jnp": sppm_parts(small, "jnp", jax.devices()[0]),
+            "cpu": sppm_parts(small, "jnp", cpu)}
+    for part in ("image", "direct", "photon"):
+        compare_blocks(f"sppm 128x96 {part}, GPU kernel vs GPU jnp",
+                       sppm["kernel"][part], sppm["jnp"][part])
+    compare_blocks("sppm 128x96 direct, GPU vs CPU", sppm["kernel"]["direct"],
+                   sppm["cpu"]["direct"])
+    compare_blocks("sppm 128x96 photon, GPU vs CPU", sppm["kernel"]["photon"],
+                   sppm["cpu"]["photon"], SPPM_PHOTON_MAX_BAD_SHARE)
+    check_means("sppm", sppm["kernel"]["image"], sppm["cpu"]["image"])
 
     bench = bench_pass("kernel")
     n_dot, n_blas = count_dots(bench["compiled"].as_text())
@@ -383,6 +434,43 @@ def phase_c():
 # ---------------------------------------------------------------- phase d
 
 
+def device_bytes(compiled) -> int:
+    """Device bytes one call of a compiled program holds at its peak:
+    arguments, outputs and XLA's temporaries, less aliased buffers."""
+    m = compiled.memory_analysis()
+    return (m.argument_size_in_bytes + m.output_size_in_bytes
+            + m.temp_size_in_bytes - m.alias_size_in_bytes)
+
+
+def sppm_stage_bytes(meta) -> int:
+    """device_bytes of the largest of an SPPM iteration's three compiled
+    stages (ray pass, photon deposit, visible-point drain), read from the
+    passes the last render_sppm call built for this scene."""
+    import jax
+    import jax.numpy as jnp
+
+    (ray_pass, (deposit_chunk, vp_drain)), = meta._jit_cache.values()
+    spec = meta.camera.film
+    n_pix = spec.x_res * spec.y_res
+    sds = jax.ShapeDtypeStruct
+    i32 = sds((), jnp.int32)
+    f32 = sds((), jnp.float32)
+    pix = sds((n_pix,), jnp.int32)
+    vec3 = sds((3,), jnp.float32)
+    ids = sds((min(1 << 15, n_pix),), jnp.int32)
+    _, vp = jax.eval_shape(ray_pass, pix, i32)
+    rows, e_hash, e_idx = jax.eval_shape(deposit_chunk, ids, i32, vec3, f32,
+                                         f32)
+    stages = (
+        ray_pass.lower(pix, i32),
+        deposit_chunk.lower(ids, i32, vec3, f32, f32),
+        vp_drain.lower(vp, sds((n_pix,), jnp.float32), rows, e_hash, e_idx,
+                       vec3, f32, sds((n_pix, 3), jnp.float32),
+                       sds((n_pix,), jnp.float32)),
+    )
+    return max(device_bytes(s.compile()) for s in stages)
+
+
 def phase_d(kernel_bench):
     import jax
     import jax.numpy as jnp
@@ -391,7 +479,6 @@ def phase_d(kernel_bench):
     from goblin_tpu.integrators.sppm import render_sppm
     from goblin_tpu.scene.loader import load_scene
 
-    dev = jax.devices()[0]
     variants = {"kernel": kernel_bench, "jnp": bench_pass("jnp")}
     for name, v in variants.items():
         with trace_backend(name):
@@ -400,6 +487,7 @@ def phase_d(kernel_bench):
         scene, meta = v["sppm_scene"]
         _, dt = timed(lambda: render_sppm(scene, meta, iterations=1))
         v["sppm_first_s"] = dt
+        v["sppm_bytes"] = sppm_stage_bytes(meta)
         v["pt"], v["sppm"] = [], []
 
     def run(v):
@@ -420,24 +508,27 @@ def phase_d(kernel_bench):
         log(f"[d] {name}: path-tracing passes "
             f"{[round(t, 4) for t in v['pt'][-4:]]} s, SPPM iteration "
             f"{v['sppm'][-1]:.4f} s")
-    peak = (dev.memory_stats() or {}).get("peak_bytes_in_use")
+    # the allocator's peak_bytes_in_use cannot be reset between variants,
+    # so each variant reports the peak its own compiled programs hold
     summary = {}
     for name, v in variants.items():
-        mem = v["compiled"].memory_analysis()
         summary[name] = {
             "pt_s_per_pass": statistics.median(v["pt"]),
             "sppm_s_per_iter": statistics.median(v["sppm"]),
             "pt_compile_s": v["compile_s"],
             "sppm_first_call_s": v["sppm_first_s"],
-            "pt_temp_bytes": getattr(mem, "temp_size_in_bytes", None),
+            "pt_peak_bytes": device_bytes(v["compiled"]),
+            "sppm_peak_bytes": v["sppm_bytes"],
         }
         log(f"[d] {name}: median {summary[name]['pt_s_per_pass']:.4f} s per "
             f"path-tracing pass, {summary[name]['sppm_s_per_iter']:.4f} s per "
             f"SPPM iteration; path-tracing compile "
             f"{v['compile_s']:.1f} s, first SPPM call (compile included) "
-            f"{v['sppm_first_s']:.1f} s, pass temp bytes "
-            f"{summary[name]['pt_temp_bytes']}")
-    log(f"[d] process peak_bytes_in_use {peak}")
+            f"{v['sppm_first_s']:.1f} s; peak bytes of the compiled "
+            f"path-tracing pass {summary[name]['pt_peak_bytes']}, of the "
+            f"largest SPPM stage {summary[name]['sppm_peak_bytes']}")
+    peak = (jax.devices()[0].memory_stats() or {}).get("peak_bytes_in_use")
+    log(f"[d] process peak_bytes_in_use {peak} (all phases)")
     log("[d] summary " + json.dumps(summary))
     for key in ("pt_s_per_pass", "sppm_s_per_iter"):
         faster = summary["kernel"][key] < summary["jnp"][key]

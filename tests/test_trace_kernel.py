@@ -162,7 +162,7 @@ def test_pack_tables_row_widths():
     ("gpu", None, "kernel"),
     ("cpu", None, "jnp"),
     ("gpu", "jnp", "jnp"),
-    ("cpu", "interpret", "interpret"),
+    ("cpu", "kernel", "kernel"),
 ])
 def test_default_backend_choice(monkeypatch, platform, env, expected):
     monkeypatch.setattr(jax, "default_backend", lambda: platform)
@@ -177,6 +177,17 @@ def test_unknown_backend_name_raises(monkeypatch):
     monkeypatch.setenv("GOBLIN_TRACE", "pallas")
     with pytest.raises(ValueError, match="GOBLIN_TRACE"):
         bake.default_trace_backend()
+
+
+def test_interpret_is_chosen_through_bake_only(monkeypatch):
+    monkeypatch.setenv("GOBLIN_TRACE", "interpret")
+    with pytest.raises(ValueError, match="GOBLIN_TRACE"):
+        bake.default_trace_backend()
+    monkeypatch.delenv("GOBLIN_TRACE")
+    _, meta = _sphere_scene("interpret")
+    assert meta.trace_backend == "interpret"
+    with pytest.raises(ValueError, match="trace_backend"):
+        _sphere_scene("pallas")
 
 
 def test_compiled_kernel_off_gpu_raises(monkeypatch):
